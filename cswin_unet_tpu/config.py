@@ -5,6 +5,9 @@ recursive ``BASE`` YAML inheritance, ``--opts KEY VALUE`` merging and CLI
 overrides — reference ``config.py:170-224``) without the yacs dependency.
 Keys and defaults match the reference so YAML files and command lines are
 interchangeable between the two frameworks.
+
+Config files are read by ``load_yaml``, a reader for the YAML subset the
+configs use (see its docstring) — no PyYAML needed.
 """
 
 from __future__ import annotations
@@ -12,9 +15,174 @@ from __future__ import annotations
 import ast
 import copy
 import os
+import re
 from typing import Any, Iterable
 
-import yaml
+
+# ---------------------------------------------------------------------------
+# YAML subset reader
+# ---------------------------------------------------------------------------
+
+class YamlSubsetError(ValueError):
+    """A construct outside the supported YAML subset, with file and line."""
+
+
+# YAML 1.1 scalar resolution (what PyYAML's safe_load applies to plain
+# scalars); quoted scalars are always strings.
+_NULL = {"", "~", "null", "Null", "NULL"}
+_TRUE = {"true", "True", "TRUE", "yes", "Yes", "YES", "on", "On", "ON"}
+_FALSE = {"false", "False", "FALSE", "no", "No", "NO", "off", "Off", "OFF"}
+_INT = re.compile(r"[-+]?(0|[1-9][0-9_]*)$")
+_FLOAT = re.compile(r"[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?$")
+_INF = re.compile(r"[-+]?\.(inf|Inf|INF)$")
+_NAN = re.compile(r"\.(nan|NaN|NAN)$")
+_UNSUPPORTED = tuple("&*!|>{%@`")
+
+
+def _strip_comment(text: str) -> str:
+    """Drop a trailing `` #`` comment that is outside quotes."""
+    quote = None
+    for i, ch in enumerate(text):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or text[i - 1] in " \t"):
+            return text[:i].rstrip()
+    return text.rstrip()
+
+
+def _split_flow(body: str, where: str) -> list[str]:
+    """Split the inside of ``[...]`` on top-level commas."""
+    items, cur, quote = [], "", None
+    for ch in body:
+        if quote:
+            cur += ch
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+            cur += ch
+        elif ch in "[]{}":
+            raise YamlSubsetError(f"{where}: nested flow collections are not supported")
+        elif ch == ",":
+            items.append(cur.strip())
+            cur = ""
+        else:
+            cur += ch
+    if cur.strip():
+        items.append(cur.strip())
+    elif items:
+        raise YamlSubsetError(f"{where}: empty item in flow list")
+    return items
+
+
+def _scalar(text: str, where: str) -> Any:
+    text = text.strip()
+    if text.startswith("["):
+        if not text.endswith("]"):
+            raise YamlSubsetError(f"{where}: unterminated flow list")
+        return [_scalar(t, where) for t in _split_flow(text[1:-1], where)]
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
+        body = text[1:-1]
+        if text[0] == "'":
+            return body.replace("''", "'")
+        if "\\" in body:
+            raise YamlSubsetError(f"{where}: escapes in double-quoted strings are not supported")
+        return body
+    if text[:1] in _UNSUPPORTED or text[:1] in "'\"":
+        raise YamlSubsetError(f"{where}: unsupported scalar {text!r}")
+    if text in _NULL:
+        return None
+    if text in _TRUE:
+        return True
+    if text in _FALSE:
+        return False
+    if _INT.match(text):
+        return int(text.replace("_", ""))
+    if _FLOAT.match(text) and any(c.isdigit() for c in text):
+        return float(text.replace("_", ""))
+    if _INF.match(text):
+        return float("-inf") if text.startswith("-") else float("inf")
+    if _NAN.match(text):
+        return float("nan")
+    return text
+
+
+def load_yaml(path: str) -> dict:
+    """Parse a config file written in the YAML subset the configs use.
+
+    Supported: block mappings nested by indentation, block lists
+    (``- item``) of scalars, inline lists of scalars (``[1, 2]``), plain,
+    single- and double-quoted scalars resolved as PyYAML's ``safe_load``
+    resolves them (YAML 1.1 bools, nulls, ints, floats), and ``#``
+    comments. Anything else (anchors, tags, flow mappings, block scalars,
+    multiple documents, tabs) raises ``YamlSubsetError`` naming the file and
+    line.
+    """
+    with open(path) as f:
+        lines = f.read().splitlines()
+    rows = []  # (indent, text, where)
+    for n, raw in enumerate(lines, 1):
+        where = f"{path}:{n}"
+        if "\t" in raw[: len(raw) - len(raw.lstrip())]:
+            raise YamlSubsetError(f"{where}: tab indentation is not supported")
+        text = _strip_comment(raw)
+        if not text.strip():
+            continue
+        if text.strip() in ("---", "...") or text.startswith("%"):
+            raise YamlSubsetError(f"{where}: document markers are not supported")
+        rows.append((len(text) - len(text.lstrip()), text.strip(), where))
+
+    def block(i, indent):
+        """Parse the block starting at rows[i] with this indent."""
+        if rows[i][1].startswith("- ") or rows[i][1] == "-":
+            out, is_list = [], True
+        else:
+            out, is_list = {}, False
+        while i < len(rows):
+            ind, text, where = rows[i]
+            if ind < indent:
+                break
+            if ind > indent:
+                raise YamlSubsetError(f"{where}: unexpected indentation")
+            if is_list:
+                if not (text.startswith("- ") or text == "-"):
+                    raise YamlSubsetError(f"{where}: expected a list item")
+                item = text[1:].strip()
+                if ":" in item and not item.startswith(("[", "'", '"')):
+                    raise YamlSubsetError(f"{where}: mappings inside lists are not supported")
+                out.append(_scalar(item, where))
+                i += 1
+                continue
+            key, sep, rest = text.partition(":")
+            if not sep or (rest and not rest.startswith(" ")):
+                raise YamlSubsetError(f"{where}: expected 'key: value'")
+            key = key.strip()
+            if not key or key[0] in _UNSUPPORTED or key[0] in "-[":
+                raise YamlSubsetError(f"{where}: unsupported key {key!r}")
+            if key in out:
+                raise YamlSubsetError(f"{where}: duplicate key {key!r}")
+            rest = rest.strip()
+            i += 1
+            if rest:
+                out[key] = _scalar(rest, where)
+            elif i < len(rows) and (rows[i][0] > ind or (
+                    rows[i][0] == ind and rows[i][1].startswith("-"))):
+                out[key], i = block(i, rows[i][0])
+            else:
+                out[key] = None
+        return out, i
+
+    if not rows:
+        return {}
+    data, i = block(0, rows[0][0])
+    if i != len(rows):
+        raise YamlSubsetError(f"{rows[i][2]}: unexpected dedent")
+    if not isinstance(data, dict):
+        raise YamlSubsetError(f"{path}: top level must be a mapping")
+    return data
 
 
 class CfgNode(dict):
@@ -73,8 +241,7 @@ class CfgNode(dict):
                 self[k] = _coerce(v, self.get(k))
 
     def merge_from_file(self, cfg_file: str) -> None:
-        with open(cfg_file) as f:
-            data = yaml.safe_load(f) or {}
+        data = load_yaml(cfg_file)
         # Recursive BASE inheritance, depth-first (reference config.py:175-179).
         for base in data.pop("BASE", [""]) or [""]:
             if base:
@@ -101,9 +268,6 @@ class CfgNode(dict):
         return {
             k: v.to_dict() if isinstance(v, CfgNode) else v for k, v in self.items()
         }
-
-    def dump(self) -> str:
-        return yaml.safe_dump(self.to_dict(), sort_keys=False)
 
 
 def _coerce(value: Any, old: Any) -> Any:
@@ -212,17 +376,9 @@ def default_config() -> CfgNode:
     c.THROUGHPUT_MODE = False
     c.LOCAL_RANK = 0
 
-    # --- TPU-specific extensions (absent in the reference) ---
-    c.TPU = CfgNode()
-    c.TPU.COMPUTE_DTYPE = "bfloat16"   # activation compute dtype
-    c.TPU.PARAM_DTYPE = "float32"      # parameter storage dtype
-    # Attention/block implementation: 'fused' (whole-block Pallas megakernel
-    # on the deterministic path, composed pallas attention while training),
-    # 'pallas' (fused stripe-attention only), or 'xla'. v5e bs128:
-    # fused 1704 / pallas 1484 / xla 1315 slices/s. CPU interprets kernels.
-    c.TPU.ATTN_IMPL = "fused"
-    c.TPU.USE_PALLAS_ATTENTION = True  # legacy alias: False forces 'xla' 
-    c.TPU.MESH_DATA_AXIS = -1          # -1: all visible devices on the data axis
+    # --- Extensions absent in the reference ---
+    c.DEVICE = CfgNode()
+    c.DEVICE.COMPUTE_DTYPE = "bfloat16"  # activation compute dtype
     return c
 
 

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import os
 
-import h5py
 import numpy as np
 
 
@@ -39,6 +38,8 @@ class SynapseDataset:
             image = data["image"]
             label = data["label"] if "label" in data else data["segmentation"]
         else:
+            import h5py  # only the .npy.h5 volume format needs it
+
             path = os.path.join(self.data_dir, f"{name}.npy.h5")
             with h5py.File(path, "r") as data:
                 if "label" in data:

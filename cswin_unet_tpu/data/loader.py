@@ -1,7 +1,7 @@
 """Host data loading: threaded prefetching batcher + device double-buffering.
 
 Replaces torch ``DataLoader(num_workers=8, pin_memory=True)``
-(reference ``trainer.py:35``) with a TPU-appropriate pipeline:
+(reference ``trainer.py:35``) with a pipeline that keeps the device fed:
 
   * a thread pool decodes/augments samples ahead of consumption (numpy,
     scipy and h5py release the GIL in their hot paths);

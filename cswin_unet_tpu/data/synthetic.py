@@ -12,11 +12,12 @@ from __future__ import annotations
 
 import os
 
-import h5py
 import numpy as np
 
 
-def _make_volume(rng: np.random.Generator, depth: int, size: int, num_classes: int):
+def make_volume(rng: np.random.Generator, depth: int, size: int, num_classes: int):
+    """(image, label) of one CT-like volume (D, size, size) with blob organs
+    of classes 1..num_classes-1."""
     image = rng.normal(0.2, 0.1, (depth, size, size)).astype(np.float32)
     label = np.zeros((depth, size, size), dtype=np.int64)
     yy, xx = np.mgrid[0:size, 0:size]
@@ -53,7 +54,7 @@ def make_synthetic_dataset(
     slices_per_vol = max(1, num_train_slices // max(1, num_volumes))
     i = 0
     while i < num_train_slices:
-        image, label = _make_volume(rng, slices_per_vol, size, num_classes)
+        image, label = make_volume(rng, slices_per_vol, size, num_classes)
         case = f"case{len(train_names) // slices_per_vol:04d}"
         for z in range(min(slices_per_vol, num_train_slices - i)):
             name = f"{case}_slice{z:03d}"
@@ -66,8 +67,10 @@ def make_synthetic_dataset(
             i += 1
 
     vol_names = []
+    if num_volumes:
+        import h5py  # only the .npy.h5 volume format needs it
     for v in range(num_volumes):
-        image, label = _make_volume(rng, depth, size, num_classes)
+        image, label = make_volume(rng, depth, size, num_classes)
         name = f"case{v + 100:04d}"
         with h5py.File(os.path.join(vol_dir, name + ".npy.h5"), "w") as f:
             f.create_dataset("image", data=image)

@@ -6,7 +6,7 @@ model's patch size, segmented, argmaxed, nearest-zoomed back to native
 resolution; per-class Dice/HD95 over classes 1..C-1; identical log lines
 ('idx %d case %s mean_dice %f mean_hd95 %f', per-class means, overall).
 
-The TPU difference is THE throughput lever: the reference runs one slice per
+The main difference is the throughput lever: the reference runs one slice per
 forward at batch size 1 (``utils.py:70-74``), paying a host<->device round
 trip and an under-utilized device per slice. Here all slices of a volume are
 batched into fixed-size chunks processed by one jitted forward (static
@@ -63,6 +63,7 @@ class VolumeInferencer:
             params = replicate(params, replicated_sharding(mesh))
         else:
             self._in_sharding = None
+            params = jax.device_put(params)  # once, not with every chunk
         self.batch = batch_slices
         # Tail buckets: smaller compiled shapes for the last chunk so a
         # 33-slice volume at batch 32 runs 32+8 slices, not 32+32 (the
@@ -76,9 +77,9 @@ class VolumeInferencer:
 
         def forward(params, images):
             if idx is None:
-                # full-channel argmax: the model fuses it into the tail
-                # kernel (emit="labels") — no logits write, no softmax pass;
-                # softmax is monotone so labels are identical (utils.py:74)
+                # full-channel argmax inside the model (emit="labels"), no
+                # softmax pass: softmax is monotone so labels are identical
+                # (utils.py:74)
                 return model.apply(params, images, deterministic=True,
                                    emit="labels")
             logits = model.apply(params, images, deterministic=True)
@@ -165,7 +166,7 @@ def test_single_volume(
 
     ``device_metrics`` keeps the whole tail on device: predictions never
     leave HBM — the inverse zoom is the scipy-parity nearest gather
-    (ops/edt.zoom_nearest) and (dice, hd95) come from the Pallas EDT
+    (ops/edt.zoom_nearest) and (dice, hd95) come from the device EDT
     (ops/edt.volume_metrics_device); only the (C-1, 2) metric array is
     pulled. Volumes are depth-padded to buckets of 16 so recompiles are
     per-bucket, not per-case (all-background padded slices are exact:
@@ -283,6 +284,12 @@ def inference(args, inferencer: VolumeInferencer, db_test, test_save_path=None,
     (test.py:103-165); mid-slice visuals for the first ``max_visuals``
     cases when ``visual_save_dir`` is set (test.py:128-153)."""
     logging.info(f"{len(db_test)} test iterations per epoch")
+    if visual_save_dir:
+        try:
+            import matplotlib  # noqa: F401 — visuals are an optional output
+        except ImportError:
+            logging.info("matplotlib is not installed: no visuals written")
+            visual_save_dir = None
     metric_sum = 0.0
     num_visuals_saved = 0
     for i_batch in range(len(db_test)):

@@ -15,15 +15,11 @@ Formula-level parity with the reference:
 All take NHWC logits (B, H, W, C) and integer labels (B, H, W); every loss
 reduces to a scalar f32. Computation is f32 regardless of input dtype.
 
-TPU layout note: every loss transposes to CLASS-MAJOR (B, C, H, W) before
-any math. NHWC puts the tiny class dim (9-14) in the lane dimension, so
-elementwise work uses 9 of 128 VPU lanes and the label lookup is a gather;
-class-major puts W in lanes (full-width), turns the class reduction into a
-cheap small-axis fold, and replaces the gather with a one-hot multiply.
-Measured on the bs-24 train step (scripts/exp_train_parts.py): the NHWC
-formulation cost 21.2 ms of loss forward on top of a 14.1 ms model forward;
-class-major removes almost all of it. ``segmentation_loss`` additionally
-shares ONE softmax between the CE and Dice terms.
+Layout note: every loss transposes to CLASS-MAJOR (B, C, H, W) before any
+math, so the tiny class dim (9-14) is not the minor dimension of the
+elementwise work, the class reduction is a small-axis fold, and the label
+lookup is a one-hot multiply instead of a gather. ``segmentation_loss``
+additionally shares ONE softmax between the CE and Dice terms.
 """
 
 from __future__ import annotations

@@ -1,12 +1,9 @@
-from .cswin_unet import CSWinUNet, CSWinBlock, MergeBlock, CarafeUpsample, Mlp
+from .cswin_unet import CSWinUNet, cswin_block
 from .wrapper import CSwinUnet, build_model
 
 __all__ = [
     "CSWinUNet",
-    "CSWinBlock",
-    "MergeBlock",
-    "CarafeUpsample",
-    "Mlp",
+    "cswin_block",
     "CSwinUnet",
     "build_model",
 ]

@@ -1,23 +1,24 @@
-"""CSWin-UNet — TPU-native flax.linen implementation.
+"""CSWin-UNet as plain JAX functions over a parameter pytree.
 
 A U-shaped encoder-decoder segmentation transformer with cross-shaped-window
 attention and LePE, behaviorally equivalent to the reference
-``CSWinTransformer`` (``networks/cswin_unet.py:322-554``) but designed for
-XLA/TPU:
+``CSWinTransformer`` (``networks/cswin_unet.py:322-554``), written for XLA:
 
-  * NHWC tensors end-to-end (TPU conv + Pallas-tile friendly); tokens keep
-    their (B, H, W, C) geometry instead of flattening to (B, L, C) and
-    re-deriving H=W=√L at every block;
+  * NHWC tensors end-to-end; tokens keep their (B, H, W, C) geometry instead
+    of flattening to (B, L, C) and re-deriving H=W=√L at every block;
   * skip connections flow functionally through the forward (the reference
     stashes them on ``self.x1/x2/x3`` — not thread-safe, cswin_unet.py:472+);
   * every shape is static; all control flow is Python-level over a static
     config, so the whole forward jit-compiles to one XLA program;
-  * mixed precision via the ``dtype`` attribute (bf16 activations, f32
-    params, f32 softmax/LN statistics);
-  * optional per-block rematerialization (``use_remat``) replacing
-    torch.utils.checkpoint (reference cswin_unet.py:468-469);
-  * attention dispatches to the fused Pallas stripe-attention kernel
-    (``attn_impl='pallas'``) or the XLA composition (``'xla'``).
+  * mixed precision via ``dtype`` (bf16 activations, f32 params, f32
+    softmax/LN statistics);
+  * optional per-block rematerialization (``use_remat``, ``jax.checkpoint``)
+    replacing torch.utils.checkpoint (reference cswin_unet.py:468-469).
+
+The model object holds only the static configuration. ``init(rng, x)``
+returns ``{"params": tree}`` and ``apply(variables, x, ...)`` runs the
+forward; the tree's key paths and shapes are the checkpoint format
+(``utils/checkpoint.py``), so they never change.
 
 Geometry for tiny/224 (configs/cswin_tiny_224_lite.yaml): embed 64, depths
 (1,2,9,1), heads (2,4,8,16), split (1,2,7,7); stage reso 56/28/14/7; stage 4
@@ -26,360 +27,148 @@ degenerates to full 7x7 window attention (reference cswin_unet.py:128-131).
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Tuple
+import dataclasses
+import functools
+from typing import Any, Optional, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
-from ..ops.attention import cswin_attention
+from ..ops.attention import cswin_attention_xla
 from ..ops.carafe import carafe, carafe_with_classifier
-from .initializers import torch_conv_bias, torch_conv_kernel, trunc_normal
+from .initializers import (init_params, ones, torch_conv_bias, torch_conv_kernel,
+                           trunc_normal, zeros)
 
 Dtype = Any
+_EPS = 1e-5
 
 
-class Mlp(nn.Module):
-    """Linear -> GELU(exact) -> Drop -> Linear -> Drop (reference :12-28)."""
+# ---------------------------------------------------------------------------
+# parameter specs
+# ---------------------------------------------------------------------------
 
-    hidden_features: int
-    out_features: int
-    drop: float = 0.0
-    dtype: Dtype = jnp.float32
+def _ln_spec(c):
+    return {"scale": ones((c,)), "bias": zeros((c,))}
 
-    @nn.compact
-    def __call__(self, x, deterministic: bool = True):
-        x = nn.Dense(
-            self.hidden_features,
-            kernel_init=trunc_normal(),
-            dtype=self.dtype,
-            name="fc1",
-        )(x)
-        x = nn.gelu(x, approximate=False)
-        x = nn.Dropout(self.drop)(x, deterministic=deterministic)
-        x = nn.Dense(
-            self.out_features,
-            kernel_init=trunc_normal(),
-            dtype=self.dtype,
-            name="fc2",
-        )(x)
-        x = nn.Dropout(self.drop)(x, deterministic=deterministic)
+
+def _dense_spec(c_in, c_out, bias=True):
+    spec = {"kernel": trunc_normal((c_in, c_out))}
+    if bias:
+        spec["bias"] = zeros((c_out,))
+    return spec
+
+
+def _conv_spec(k, c_in, c_out):
+    return {"kernel": torch_conv_kernel((k, k, c_in, c_out)),
+            "bias": torch_conv_bias((c_out,), c_in * k * k)}
+
+
+def _lepe_spec(c):
+    return {"get_v_kernel": torch_conv_kernel((3, 3, 1, c)),
+            "get_v_bias": torch_conv_bias((c,), 9)}
+
+
+def _carafe_spec(dim, dim_out, k=3, up=2):
+    c_mid, c_enc = dim // 4, up * up * k * k
+    return {
+        "down_kernel": torch_conv_kernel((1, 1, dim, c_mid)),
+        "down_bias": torch_conv_bias((c_mid,), dim),
+        "encoder_kernel": torch_conv_kernel((k, k, c_mid, c_enc)),
+        "encoder_bias": torch_conv_bias((c_enc,), c_mid * k * k),
+        "out_kernel": torch_conv_kernel((1, 1, dim, dim_out)),
+        "out_bias": torch_conv_bias((dim_out,), dim),
+    }
+
+
+# ---------------------------------------------------------------------------
+# layers (numerics follow flax.linen's Dense / Conv / LayerNorm, the format
+# the checkpoints were written in)
+# ---------------------------------------------------------------------------
+
+def layer_norm(p, x, dtype):
+    """LayerNorm over the last axis; statistics in f32, output in ``dtype``."""
+    xf = x.astype(jnp.float32)
+    mean = jnp.mean(xf, -1, keepdims=True)
+    var = jnp.maximum(jnp.mean(xf * xf, -1, keepdims=True) - mean * mean, 0.0)
+    mul = lax.rsqrt(var + _EPS) * p["scale"].astype(jnp.float32)
+    return ((xf - mean) * mul + p["bias"].astype(jnp.float32)).astype(dtype)
+
+
+def dense(p, x, dtype):
+    y = jnp.dot(x.astype(dtype), p["kernel"].astype(dtype))
+    if "bias" in p:
+        y = y + p["bias"].astype(dtype)
+    return y
+
+
+def conv(p, x, dtype, *, stride, pad):
+    y = lax.conv_general_dilated(
+        x.astype(dtype), p["kernel"].astype(dtype), (stride, stride),
+        ((pad, pad), (pad, pad)), dimension_numbers=("NHWC", "HWIO", "NHWC"))
+    return y + p["bias"].astype(dtype)
+
+
+def dropout(x, rate, rng, broadcast_dims=()):
+    """Inverted dropout; ``broadcast_dims`` share one draw (drop-path uses
+    (1, 2, 3): one keep/drop per sample, scaled by 1/(1-p) — timm DropPath)."""
+    if rate == 0.0 or rng is None:
         return x
+    if rate >= 1.0:
+        return jnp.zeros_like(x)
+    keep = 1.0 - rate
+    shape = tuple(1 if i in broadcast_dims else n for i, n in enumerate(x.shape))
+    mask = jnp.broadcast_to(jax.random.bernoulli(rng, keep, shape), x.shape)
+    return lax.select(mask, x / keep, jnp.zeros_like(x))
 
 
-class StripeAttention(nn.Module):
-    """One stripe branch of CSWin attention (reference LePEAttention :31-109).
+def cswin_block(p, x, rng, *, num_heads, split_size, last, qk_scale, drop,
+                drop_path, dtype):
+    """LN -> joint qkv -> two half-channel stripe branches (or one
+    full-window branch in the last stage) -> proj -> residual; LN -> MLP ->
+    residual (reference :112-181). ``rng`` is None when deterministic."""
+    B, H, W, C = x.shape
+    keys = [None] * 4 if rng is None else list(jax.random.split(rng, 4))
 
-    Owns the LePE depthwise-3x3 parameters (``get_v`` in the reference) and
-    delegates the computation to ``ops.cswin_attention``.
-    """
+    qkv = dense(p["qkv"], layer_norm(p["norm1"], x, dtype), dtype)
+    qkv = qkv.reshape(B, H, W, 3, C)
+    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
 
-    dim: int
-    num_heads: int
-    h_sp: int
-    w_sp: int
-    qk_scale: Optional[float] = None
-    dtype: Dtype = jnp.float32
-    attn_impl: str = "xla"
+    def branch(name, sl, heads, h_sp, w_sp):
+        lepe = p[name]
+        head_dim = (sl.stop - sl.start) // heads
+        scale = qk_scale if qk_scale is not None else head_dim ** -0.5
+        return cswin_attention_xla(
+            q[..., sl], k[..., sl], v[..., sl],
+            lepe["get_v_kernel"], lepe["get_v_bias"],
+            h_sp=h_sp, w_sp=w_sp, num_heads=heads, scale=scale)
 
-    @nn.compact
-    def __call__(self, q, k, v):
-        kernel = self.param("get_v_kernel", torch_conv_kernel, (3, 3, 1, self.dim))
-        bias = self.param("get_v_bias", torch_conv_bias(9), (self.dim,))
-        head_dim = self.dim // self.num_heads
-        scale = self.qk_scale if self.qk_scale is not None else head_dim**-0.5
-        return cswin_attention(
-            q, k, v, kernel, bias,
-            h_sp=self.h_sp, w_sp=self.w_sp, num_heads=self.num_heads,
-            scale=scale, impl=self.attn_impl,
-        )
+    if last:
+        att = branch("attns_0", slice(0, C), num_heads, H, W)
+    else:
+        half = C // 2
+        # Branch 0: vertical stripes (h_sp=H, w_sp=split); branch 1:
+        # horizontal stripes (h_sp=split, w_sp=W). Reference :43-51.
+        att = jnp.concatenate([
+            branch("attns_0", slice(0, half), num_heads // 2, H, split_size),
+            branch("attns_1", slice(half, C), num_heads // 2, split_size, W),
+        ], axis=-1)
+    att = dense(p["proj"], att, dtype)
+    x = x + dropout(att, drop_path, keys[0], (1, 2, 3))
 
-
-class _ParamHolder(nn.Module):
-    """Declares raw params under a named scope so the fused block kernel can
-    consume the SAME param tree as the composed modules (shapes/inits match
-    nn.LayerNorm / nn.Dense / StripeAttention exactly)."""
-
-    spec: Tuple[Tuple[str, tuple, Any], ...]
-
-    @nn.compact
-    def __call__(self):
-        return tuple(self.param(n, init, shape) for n, shape, init in self.spec)
-
-
-class _MlpParams(nn.Module):
-    dim: int
-    hidden: int
-
-    @nn.compact
-    def __call__(self):
-        fc1 = _ParamHolder(
-            (("kernel", (self.dim, self.hidden), trunc_normal()),
-             ("bias", (self.hidden,), nn.initializers.zeros)),
-            name="fc1",
-        )()
-        fc2 = _ParamHolder(
-            (("kernel", (self.hidden, self.dim), trunc_normal()),
-             ("bias", (self.dim,), nn.initializers.zeros)),
-            name="fc2",
-        )()
-        return fc1 + fc2
+    y = dense(p["mlp"]["fc1"], layer_norm(p["norm2"], x, dtype), dtype)
+    y = dropout(jax.nn.gelu(y, approximate=False), drop, keys[1])
+    y = dropout(dense(p["mlp"]["fc2"], y, dtype), drop, keys[2])
+    return x + dropout(y, drop_path, keys[3], (1, 2, 3))
 
 
-# Minimum reso routed through the fused fwd+bwd kernel pair when TRAINING
-# (measured per geometry — see the routing comment in CSWinBlock.__call__).
-# Module-level so experiments (scripts/exp_train_route.py) can A/B it.
-# Re-measured round 3 WITH the head-block attention backward and bf16
-# LePE: full bs-24 step 45.45 ms at 28 vs 48.82 ms routing the 18 stage-3
-# blocks fused — replay still wins at 14x14; keep 28.
-# Re-measured round 5 WITH the mm LePE backward live (it LOSES at the
-# stage-3 window class — 0.681 vs 0.524 ms/block isolated — and wins at
-# stage 2, scripts/exp_lepe_mm2.py bwd): full bs-24 step 43.57 ms at 28
-# vs 46.43 ms at 14. The composed replay stays ~0.16 ms/block cheaper at
-# 14x14; keep 28.
-_FUSE_TRAIN_MIN_RESO = 28
+# ---------------------------------------------------------------------------
+# model
+# ---------------------------------------------------------------------------
 
-
-class CSWinBlock(nn.Module):
-    """LN -> joint qkv -> two half-channel stripe branches (or one full-window
-    branch in the last stage) -> proj -> residual; LN -> MLP -> residual.
-    Reference :112-181."""
-
-    dim: int
-    reso: Tuple[int, int]
-    num_heads: int
-    split_size: int
-    mlp_ratio: float = 4.0
-    qkv_bias: bool = True
-    qk_scale: Optional[float] = None
-    drop: float = 0.0
-    attn_drop: float = 0.0
-    drop_path: float = 0.0
-    last_stage: bool = False
-    deterministic: bool = True
-    dtype: Dtype = jnp.float32
-    attn_impl: str = "xla"
-
-    def _collect(self, C, last):
-        """Create/collect this block's params in the fused-kernel 16-tuple
-        layout. Param scopes/names/shapes are identical to the composed
-        path, so checkpoints are interchangeable. Returns (params, scale)."""
-        from .initializers import torch_conv_bias as _tcb, torch_conv_kernel as _tck
-
-        ones, zeros = nn.initializers.ones, nn.initializers.zeros
-        cb = C if last else C // 2
-        n1s, n1b = _ParamHolder(
-            (("scale", (C,), ones), ("bias", (C,), zeros)), name="norm1")()
-        if self.qkv_bias:
-            qkvk, qkvb = _ParamHolder(
-                (("kernel", (C, 3 * C), trunc_normal()), ("bias", (3 * C,), zeros)),
-                name="qkv")()
-        else:
-            (qkvk,) = _ParamHolder(
-                (("kernel", (C, 3 * C), trunc_normal()),), name="qkv")()
-            qkvb = jnp.zeros((3 * C,), jnp.float32)
-        lk0, lb0 = _ParamHolder(
-            (("get_v_kernel", (3, 3, 1, cb), _tck), ("get_v_bias", (cb,), _tcb(9))),
-            name="attns_0")()
-        if last:
-            lk1, lb1 = lk0, lb0  # single-branch blocks have no attns_1
-        else:
-            lk1, lb1 = _ParamHolder(
-                (("get_v_kernel", (3, 3, 1, cb), _tck), ("get_v_bias", (cb,), _tcb(9))),
-                name="attns_1")()
-        projk, projb = _ParamHolder(
-            (("kernel", (C, C), trunc_normal()), ("bias", (C,), zeros)),
-            name="proj")()
-        n2s, n2b = _ParamHolder(
-            (("scale", (C,), ones), ("bias", (C,), zeros)), name="norm2")()
-        hidden = int(C * self.mlp_ratio)
-        fc1k, fc1b, fc2k, fc2b = _MlpParams(C, hidden, name="mlp")()
-
-        head_dim = C // self.num_heads
-        scale = self.qk_scale if self.qk_scale is not None else head_dim**-0.5
-        params = (
-            n1s, n1b, qkvk, qkvb,
-            lk0.reshape(3, 3, cb), lb0, lk1.reshape(3, 3, cb), lb1,
-            projk, projb, n2s, n2b, fc1k, fc1b, fc2k, fc2b,
-        )
-        return params, scale
-
-    def _fused(self, x, H, W, C, last, dps=None):
-        """Whole-block Pallas megakernel path. ``dps``: per-sample drop-path
-        multipliers for training."""
-        from ..ops.pallas.cswin_block import fused_cswin_block
-
-        params, scale = self._collect(C, last)
-        return fused_cswin_block(
-            x.astype(self.dtype), params, dps, H, W, C, self.num_heads,
-            self.split_size, last, scale, self.qkv_bias,
-        )
-
-    @nn.compact
-    def __call__(self, x, return_params: bool = False):
-        deterministic = self.deterministic
-        H, W = self.reso
-        B = x.shape[0]
-        C = self.dim
-        last = self.last_stage or (H == self.split_size and W == self.split_size)
-
-        if return_params:
-            # Pair-fusion path: the parent stage loop collects two adjacent
-            # blocks' params and runs them through ONE pallas_call
-            # (_fused_block_pair_fwd). Params are created in the exact same
-            # scopes as every other path.
-            return self._collect(C, last)
-
-        if self.attn_impl == "fused" and deterministic:
-            return self._fused(x, H, W, C, last)
-        # Training routing, measured at bs128 per block (fwd+bwd):
-        # reso >= 28 the fused kernel pair wins (stage 1: 14.8 vs 20.2 ms
-        # XLA; stage 2: 9.9 vs 13.9); at 14x14 and the last stage the XLA
-        # composition's saved-activation backward is cheaper than fused-fwd
-        # + composed-replay (stage 3: 4.1 vs 4.75), so those blocks train
-        # through the plain XLA composition below.
-        fuse_train = (self.attn_impl == "fused" and self.drop == 0.0
-                      and self.attn_drop == 0.0 and not last
-                      and H >= _FUSE_TRAIN_MIN_RESO)
-        if fuse_train:
-            # Fused forward with per-sample drop-path masks as kernel inputs
-            # (timm DropPath semantics — binary keep mask scaled by 1/(1-p));
-            # the custom_vjp backward is the hand-written fused kernel.
-            # Dropout inside attention/MLP is 0 in every config, so the
-            # fused kernel covers training exactly.
-            if self.drop_path > 0.0:
-                rng = self.make_rng("dropout")
-                r0, r1 = jax.random.split(rng)
-                keep = 1.0 - self.drop_path
-                dp0 = jax.random.bernoulli(r0, keep, (B, 1)).astype(jnp.float32) / keep
-                dp1 = jax.random.bernoulli(r1, keep, (B, 1)).astype(jnp.float32) / keep
-                dps = (dp0, dp1)
-            else:
-                dps = None
-            return self._fused(x, H, W, C, last, dps=dps)
-        # Composed fallback: plain XLA when routed here for training speed,
-        # per-branch pallas attention kernel otherwise (nonzero dropout).
-        attn_impl = "xla" if self.attn_impl == "fused" else self.attn_impl
-
-        img = nn.LayerNorm(epsilon=1e-5, dtype=self.dtype, name="norm1")(x)
-        qkv = nn.Dense(
-            3 * C,
-            use_bias=self.qkv_bias,
-            kernel_init=trunc_normal(),
-            dtype=self.dtype,
-            name="qkv",
-        )(img)
-        qkv = qkv.reshape(B, H, W, 3, C)
-        q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
-
-        if last:
-            attened = StripeAttention(
-                dim=C, num_heads=self.num_heads, h_sp=H, w_sp=W,
-                qk_scale=self.qk_scale, dtype=self.dtype,
-                attn_impl=attn_impl, name="attns_0",
-            )(q, k, v)
-        else:
-            half = C // 2
-            # Branch 0: vertical stripes (h_sp=H, w_sp=split); branch 1:
-            # horizontal stripes (h_sp=split, w_sp=W). Reference :43-51.
-            x0 = StripeAttention(
-                dim=half, num_heads=self.num_heads // 2, h_sp=H,
-                w_sp=self.split_size, qk_scale=self.qk_scale, dtype=self.dtype,
-                attn_impl=attn_impl, name="attns_0",
-            )(q[..., :half], k[..., :half], v[..., :half])
-            x1 = StripeAttention(
-                dim=half, num_heads=self.num_heads // 2, h_sp=self.split_size,
-                w_sp=W, qk_scale=self.qk_scale, dtype=self.dtype,
-                attn_impl=attn_impl, name="attns_1",
-            )(q[..., half:], k[..., half:], v[..., half:])
-            attened = jnp.concatenate([x0, x1], axis=-1)
-
-        attened = nn.Dense(
-            C, kernel_init=trunc_normal(), dtype=self.dtype, name="proj"
-        )(attened)
-
-        # Per-sample stochastic depth (timm DropPath with rescaling).
-        drop_path = nn.Dropout(self.drop_path, broadcast_dims=(1, 2, 3))
-        x = x + drop_path(attened, deterministic=deterministic)
-
-        y = nn.LayerNorm(epsilon=1e-5, dtype=self.dtype, name="norm2")(x)
-        y = Mlp(
-            hidden_features=int(C * self.mlp_ratio),
-            out_features=C,
-            drop=self.drop,
-            dtype=self.dtype,
-            name="mlp",
-        )(y, deterministic=deterministic)
-        x = x + drop_path(y, deterministic=deterministic)
-        return x
-
-
-class MergeBlock(nn.Module):
-    """Stage-transition downsample: 3x3 stride-2 conv + LN (reference :205-220)."""
-
-    dim_out: int
-    dtype: Dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x):
-        fan_in = x.shape[-1] * 9
-        x = nn.Conv(
-            self.dim_out,
-            kernel_size=(3, 3),
-            strides=(2, 2),
-            padding=((1, 1), (1, 1)),
-            kernel_init=torch_conv_kernel,
-            bias_init=torch_conv_bias(fan_in),
-            dtype=self.dtype,
-            name="conv",
-        )(x)
-        return nn.LayerNorm(epsilon=1e-5, dtype=self.dtype, name="norm")(x)
-
-
-class CarafeUpsample(nn.Module):
-    """CARAFE content-aware upsampler (reference CARAFE/CARAFE4 :222-319)."""
-
-    dim: int
-    dim_out: int
-    kernel_size: int = 3
-    up_factor: int = 2
-    dtype: Dtype = jnp.float32
-    impl: str = "fast"
-
-    @nn.compact
-    def __call__(self, x):
-        k, up = self.kernel_size, self.up_factor
-        c_mid = self.dim // 4
-        c_enc = up * up * k * k
-        down_kernel = self.param("down_kernel", torch_conv_kernel, (1, 1, self.dim, c_mid))
-        down_bias = self.param("down_bias", torch_conv_bias(self.dim), (c_mid,))
-        enc_kernel = self.param("encoder_kernel", torch_conv_kernel, (k, k, c_mid, c_enc))
-        enc_bias = self.param("encoder_bias", torch_conv_bias(c_mid * k * k), (c_enc,))
-        out_kernel = self.param("out_kernel", torch_conv_kernel, (1, 1, self.dim, self.dim_out))
-        out_bias = self.param("out_bias", torch_conv_bias(self.dim), (self.dim_out,))
-        if self.impl == "fused":
-            # Whole-CARAFE Pallas kernel (kernel prediction + softmax +
-            # reassembly in VMEM); XLA 'fast' composition backward.
-            from ..ops.pallas.carafe_tail import carafe_up
-
-            return carafe_up(
-                x.astype(self.dtype),
-                down_kernel, down_bias,
-                enc_kernel, enc_bias,
-                out_kernel, out_bias,
-                up,
-            )
-        return carafe(
-            x,
-            down_kernel, down_bias,
-            enc_kernel, enc_bias,
-            out_kernel, out_bias,
-            kernel_size=k, up_factor=up,
-        )
-
-
-class CSWinUNet(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class CSWinUNet:
     """Full U-Net. Input (B, H, W, in_chans) NHWC; output logits
     (B, H, W, num_classes). Reference CSWinTransformer :322-554."""
 
@@ -394,191 +183,147 @@ class CSWinUNet(nn.Module):
     qkv_bias: bool = True
     qk_scale: Optional[float] = None
     drop_rate: float = 0.0
-    attn_drop_rate: float = 0.0
     drop_path_rate: float = 0.0
     use_remat: bool = False
     dtype: Dtype = jnp.float32
-    attn_impl: str = "xla"
 
-    def _block(self, stage: int, i: int, *, dim, reso, dpr, name, deterministic,
-               last_stage=False):
-        cls = nn.remat(CSWinBlock) if self.use_remat else CSWinBlock
-        return cls(
-            deterministic=deterministic,
-            dim=dim,
-            reso=(reso, reso),
-            num_heads=self.num_heads[stage],
-            split_size=self.split_size[stage],
-            mlp_ratio=self.mlp_ratio,
-            qkv_bias=self.qkv_bias,
-            qk_scale=self.qk_scale,
-            drop=self.drop_rate,
-            attn_drop=self.attn_drop_rate,
-            drop_path=float(dpr[i]),
-            last_stage=last_stage,
-            dtype=self.dtype,
-            attn_impl=self.attn_impl,
-            name=name,
-        )
+    # -- static geometry ----------------------------------------------------
+    def _dims(self):
+        ed = self.embed_dim
+        return [ed, ed * 2, ed * 4, ed * 8]
 
-    def _run_stage(self, x, s, *, prefix, dims, resos, dpr, off, n_blocks,
-                   deterministic, is_last):
-        """Run a stage's blocks, fusing ADJACENT PAIRS into one pallas_call
-        where measured to win (small-reso stages at inference; see
-        ops.pallas.cswin_block._pair_fuse_ok). Param tree is identical —
-        pairing only changes how the already-collected params are consumed."""
-        from ..ops.pallas.cswin_block import (_fused_block_pair_fwd,
-                                              _pair_fuse_ok)
+    def _resos(self):
+        return [self.img_size // (4 * 2**i) for i in range(4)]
 
-        reso, C = resos[s], dims[s]
-        pair_ok = (self.attn_impl == "fused" and deterministic and not is_last
-                   and reso != self.split_size[s]
-                   and _pair_fuse_ok(reso, reso, C))
-        i = 0
-        while i < n_blocks:
-            blk = self._block(
-                s, off + i, dim=C, reso=reso, dpr=dpr,
-                name=f"{prefix}_{i}", deterministic=deterministic,
-                last_stage=is_last,
-            )
-            if pair_ok and i + 1 < n_blocks:
-                blk2 = self._block(
-                    s, off + i + 1, dim=C, reso=reso, dpr=dpr,
-                    name=f"{prefix}_{i + 1}", deterministic=deterministic,
-                    last_stage=is_last,
-                )
-                p1, scale = blk(x, return_params=True)
-                p2, _ = blk2(x, return_params=True)
-                x = _fused_block_pair_fwd(
-                    x.astype(self.dtype), p1, p2, H=reso, W=reso, C=C,
-                    heads=self.num_heads[s], split=self.split_size[s],
-                    scale=scale, qkv_bias=self.qkv_bias)
-                i += 2
-            else:
-                x = blk(x)
-                i += 1
+    def _is_last(self, s):
+        """Single full-window branch: the last stage, or a stage whose
+        resolution equals its split size (reference :128-131)."""
+        reso = self._resos()[s]
+        return s == 3 or reso == self.split_size[s]
+
+    def _block_spec(self, s):
+        C = self._dims()[s]
+        hidden = int(C * self.mlp_ratio)
+        last = self._is_last(s)
+        spec = {"norm1": _ln_spec(C),
+                "qkv": _dense_spec(C, 3 * C, self.qkv_bias),
+                "attns_0": _lepe_spec(C if last else C // 2)}
+        if not last:
+            spec["attns_1"] = _lepe_spec(C // 2)
+        spec.update({
+            "proj": _dense_spec(C, C),
+            "norm2": _ln_spec(C),
+            "mlp": {"fc1": _dense_spec(C, hidden), "fc2": _dense_spec(hidden, C)},
+        })
+        return spec
+
+    def param_spec(self) -> dict:
+        """Tree of ``initializers.Param`` leaves: the checkpoint layout."""
+        ed, dims, depth = self.embed_dim, self._dims(), list(self.depth)
+        spec = {
+            "stage1_conv_embed_conv": _conv_spec(7, self.in_chans, ed),
+            "stage1_conv_embed_norm": _ln_spec(ed),
+        }
+        for s in range(4):
+            for i in range(depth[s]):
+                spec[f"stage{s + 1}_{i}"] = self._block_spec(s)
+            if s < 3:
+                spec[f"merge{s + 1}"] = {"conv": _conv_spec(3, dims[s], dims[s + 1]),
+                                         "norm": _ln_spec(dims[s + 1])}
+        spec["norm"] = _ln_spec(dims[3])
+        for s in range(3, -1, -1):
+            for i in range(depth[s]):
+                spec[f"stage_up{s + 1}_{i}"] = self._block_spec(s)
+            if s > 0:
+                spec[f"upsample{s + 1}"] = _carafe_spec(dims[s], dims[s - 1])
+                spec[f"concat_linear{s + 1}"] = _dense_spec(2 * dims[s - 1], dims[s - 1])
+        spec["norm_up"] = _ln_spec(ed)
+        spec["upsample1"] = _carafe_spec(ed, ed, up=4)
+        spec["output"] = {"kernel": torch_conv_kernel((1, 1, ed, self.num_classes))}
+        return spec
+
+    def init(self, rng, x) -> dict:
+        """Fresh parameters ``{"params": tree}``; ``x`` is an example input
+        (only its channel count is checked)."""
+        if x.shape[-1] != self.in_chans:
+            raise ValueError(f"expected NHWC input with {self.in_chans} channels, "
+                             f"got {x.shape}")
+        return {"params": init_params(self.param_spec(), rng)}
+
+    # -- forward ------------------------------------------------------------
+    def _stage(self, params, x, s, prefix, dpr, off, next_rng):
+        fn = functools.partial(
+            cswin_block, num_heads=self.num_heads[s],
+            split_size=self.split_size[s], last=self._is_last(s),
+            qk_scale=self.qk_scale, drop=self.drop_rate, dtype=self.dtype)
+        for i in range(self.depth[s]):
+            blk = functools.partial(fn, drop_path=float(dpr[off + i]))
+            if self.use_remat:
+                blk = jax.checkpoint(blk)
+            x = blk(params[f"{prefix}{s + 1}_{i}"], x, next_rng())
         return x
 
-    @nn.compact
-    def __call__(self, x, *, deterministic: bool = True, emit: str = "logits"):
-        assert x.shape[-1] == self.in_chans, (
-            f"expected NHWC input with {self.in_chans} channels, got {x.shape}"
-        )
-        assert emit in ("logits", "labels")
-        x = x.astype(self.dtype)
-        ed = self.embed_dim
-        depth = list(self.depth)
-        dims = [ed, ed * 2, ed * 4, ed * 8]
-        resos = [self.img_size // (4 * 2**i) for i in range(4)]
+    def apply(self, variables, x, *, deterministic: bool = True, rngs=None,
+              emit: str = "logits"):
+        """Forward. ``rngs={"dropout": key}`` is required when
+        ``deterministic`` is False; ``emit="labels"`` returns the per-pixel
+        argmax (int32) instead of f32 logits."""
+        if x.shape[-1] != self.in_chans:
+            raise ValueError(f"expected NHWC input with {self.in_chans} channels, "
+                             f"got {x.shape}")
+        if emit not in ("logits", "labels"):
+            raise ValueError(f"emit must be 'logits' or 'labels', got {emit!r}")
+        p = variables["params"]
+        dt = self.dtype
+        dims, depth = self._dims(), list(self.depth)
         # Stochastic-depth schedule shared by encoder and decoder (ref :348).
         dpr = np.linspace(0, self.drop_path_rate, sum(depth))
         offs = np.cumsum([0] + depth)
 
+        counter = iter(range(1 << 30))
+        base = None if deterministic else rngs["dropout"]
+
+        def next_rng():
+            return None if base is None else jax.random.fold_in(base, next(counter))
+
         # --- Encoder -------------------------------------------------------
         # Stem: 7x7 stride-4 conv + LN (reference :338-342).
-        x = nn.Conv(
-            ed,
-            kernel_size=(7, 7),
-            strides=(4, 4),
-            padding=((2, 2), (2, 2)),
-            kernel_init=torch_conv_kernel,
-            bias_init=torch_conv_bias(self.in_chans * 49),
-            dtype=self.dtype,
-            name="stage1_conv_embed_conv",
-        )(x)
-        x = nn.LayerNorm(epsilon=1e-5, dtype=self.dtype, name="stage1_conv_embed_norm")(x)
-        x = nn.Dropout(self.drop_rate)(x, deterministic=deterministic)
+        x = conv(p["stage1_conv_embed_conv"], x, dt, stride=4, pad=2)
+        x = layer_norm(p["stage1_conv_embed_norm"], x, dt)
+        x = dropout(x, self.drop_rate, next_rng())
 
         skips = []
         for s in range(4):
-            is_last = s == 3
-            x = self._run_stage(
-                x, s, prefix=f"stage{s + 1}", dims=dims, resos=resos, dpr=dpr,
-                off=int(offs[s]), n_blocks=depth[s],
-                deterministic=deterministic, is_last=is_last)
-            if not is_last:
+            x = self._stage(p, x, s, "stage", dpr, int(offs[s]), next_rng)
+            if s < 3:
+                # Stage-transition downsample: 3x3 stride-2 conv + LN (ref :205-220).
                 skips.append(x)
-                x = MergeBlock(dims[s + 1], dtype=self.dtype, name=f"merge{s + 1}")(x)
-        x = nn.LayerNorm(epsilon=1e-5, dtype=self.dtype, name="norm")(x)
+                m = p[f"merge{s + 1}"]
+                x = layer_norm(m["norm"], conv(m["conv"], x, dt, stride=2, pad=1), dt)
+        x = layer_norm(p["norm"], x, dt)
 
         # --- Decoder -------------------------------------------------------
         for s in range(3, -1, -1):
-            is_last = s == 3
-            x = self._run_stage(
-                x, s, prefix=f"stage_up{s + 1}", dims=dims, resos=resos,
-                dpr=dpr, off=int(offs[s]), n_blocks=depth[s],
-                deterministic=deterministic, is_last=is_last)
+            x = self._stage(p, x, s, "stage_up", dpr, int(offs[s]), next_rng)
             if s > 0:
-                # Small stages keep XLA. The fused kernel is G-general
-                # (roll+mask shifts, carafe_tail.py) and parity-checked in
-                # interpret mode at G=4 @14/@7, but on real TPU the G>1
-                # Mosaic lowering still fails to compile, and XLA is already
-                # near-free at those sites anyway (0.257 ms @14, ~0 @7 at
-                # bs128 vs 0.95 ms for the G=1 kernel) — there is no win to
-                # chase. @28 the kernel wins (1.95 vs 2.33 ms) and is fused.
-                fuse_up = self.attn_impl == "fused" and resos[s] >= 28
-                x = CarafeUpsample(
-                    dims[s], dims[s - 1], dtype=self.dtype,
-                    impl="fused" if fuse_up else "fast",
-                    name=f"upsample{s + 1}",
-                )(x)
+                u = p[f"upsample{s + 1}"]
+                x = carafe(x, u["down_kernel"], u["down_bias"], u["encoder_kernel"],
+                           u["encoder_bias"], u["out_kernel"], u["out_bias"],
+                           kernel_size=3, up_factor=2)
                 # Skip-concat: [skip, upsampled] then linear 2C->C (ref :509-510).
                 x = jnp.concatenate([skips[s - 1], x], axis=-1)
-                x = nn.Dense(
-                    dims[s - 1],
-                    kernel_init=trunc_normal(),
-                    dtype=self.dtype,
-                    name=f"concat_linear{s + 1}",
-                )(x)
+                x = dense(p[f"concat_linear{s + 1}"], x, dt)
+        x = layer_norm(p["norm_up"], x, dt)
 
-        x = nn.LayerNorm(epsilon=1e-5, dtype=self.dtype, name="norm_up")(x)
-
-        # Final x4 expansion + 1x1 classifier (reference :536-544), fused:
-        # both 1x1 convs commute below the CARAFE reassembly, so the tap
-        # einsum and the high-res write happen on num_classes channels
-        # instead of embed_dim (exact — see ops.carafe.carafe_with_classifier).
-        # Param tree is unchanged: upsample1/* and output/kernel.
-        k, up = 3, 4
-        c_mid, c_enc = ed // 4, up * up * k * k
-        up_params = _ParamHolder(
-            (
-                ("down_kernel", (1, 1, ed, c_mid), torch_conv_kernel),
-                ("down_bias", (c_mid,), torch_conv_bias(ed)),
-                ("encoder_kernel", (k, k, c_mid, c_enc), torch_conv_kernel),
-                ("encoder_bias", (c_enc,), torch_conv_bias(c_mid * k * k)),
-                ("out_kernel", (1, 1, ed, ed), torch_conv_kernel),
-                ("out_bias", (ed,), torch_conv_bias(ed)),
-            ),
-            name="upsample1",
-        )()
-        (cls_kernel,) = _ParamHolder(
-            (("kernel", (1, 1, ed, self.num_classes), torch_conv_kernel),),
-            name="output",
-        )()
-        if self.attn_impl == "fused":
-            # Pallas tail: the XLA tail is the most expensive op of the whole
-            # forward (20.5 ms of a 72 ms bs128 run — scripts/profile_tail.py);
-            # the kernel keeps reassembly in VMEM. custom_vjp replays the XLA
-            # composition for gradients.
-            if emit == "labels":
-                # eval forward: per-pixel argmax fused INTO the tail kernel
-                # (softmax is monotone — identical labels to the reference's
-                # softmax->argmax, utils.py:74); the num_classes·up² logits
-                # write and the eval-side argmax pass never touch HBM.
-                from ..ops.pallas.carafe_tail import carafe_tail_argmax_pallas
-
-                return carafe_tail_argmax_pallas(
-                    x.astype(self.dtype), *up_params, cls_kernel,
-                    up_factor=up)
-            from ..ops.pallas.carafe_tail import carafe_tail
-
-            x = carafe_tail(x.astype(self.dtype), *up_params, cls_kernel,
-                            up_factor=up)
-        else:
-            x = carafe_with_classifier(
-                x.astype(self.dtype), *up_params, cls_kernel, kernel_size=k,
-                up_factor=up,
-            )
+        # Final x4 CARAFE + 1x1 classifier (reference :536-544), fused: both
+        # 1x1 convs commute below the CARAFE reassembly, so the tap einsum and
+        # the high-res write happen on num_classes channels instead of
+        # embed_dim (exact — see ops.carafe.carafe_with_classifier).
+        u = p["upsample1"]
+        x = carafe_with_classifier(
+            x.astype(dt), u["down_kernel"], u["down_bias"], u["encoder_kernel"],
+            u["encoder_bias"], u["out_kernel"], u["out_bias"],
+            p["output"]["kernel"], kernel_size=3, up_factor=4)
         if emit == "labels":
             return jnp.argmax(x.astype(jnp.float32), axis=-1).astype(jnp.int32)
         return x.astype(jnp.float32)

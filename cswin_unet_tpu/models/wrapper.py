@@ -9,24 +9,36 @@ unwrapping, encoder->decoder key mirroring, shape-mismatch dropping) lives in
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
-import flax.linen as nn
 import jax.numpy as jnp
 
 from .cswin_unet import CSWinUNet
 
 
-class CSwinUnet(nn.Module):
-    """Thin wrapper: (B, H, W, 1|3) NHWC in, (B, H, W, num_classes) logits out."""
+def _three_channel(x):
+    if x.shape[-1] == 1:
+        x = jnp.repeat(x, 3, axis=-1)  # reference vision_transformer.py:40-41
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class CSwinUnet:
+    """Thin wrapper: (B, H, W, 1|3) NHWC in, (B, H, W, num_classes) logits
+    out. Parameters live under ``{"params": {"backbone": ...}}``."""
 
     backbone: CSWinUNet
 
-    @nn.compact
-    def __call__(self, x, *, deterministic: bool = True, emit: str = "logits"):
-        if x.shape[-1] == 1:
-            x = jnp.repeat(x, 3, axis=-1)  # reference vision_transformer.py:40-41
-        return self.backbone(x, deterministic=deterministic, emit=emit)
+    def init(self, rng, x) -> dict:
+        inner = self.backbone.init(rng, _three_channel(x))
+        return {"params": {"backbone": inner["params"]}}
+
+    def apply(self, variables, x, *, deterministic: bool = True, rngs=None,
+              emit: str = "logits"):
+        return self.backbone.apply(
+            {"params": variables["params"]["backbone"]}, _three_channel(x),
+            deterministic=deterministic, rngs=rngs, emit=emit)
 
 
 def build_model(
@@ -35,18 +47,12 @@ def build_model(
     num_classes: int = 9,
     *,
     dtype: Any = None,
-    attn_impl: str | None = None,
     use_remat: bool | None = None,
 ) -> CSwinUnet:
     """Construct the model from a frozen CfgNode (reference vision_transformer.py:23-35)."""
     cs = config.MODEL.CSWIN
     if dtype is None:
-        dtype = jnp.dtype(config.TPU.COMPUTE_DTYPE)
-    if attn_impl is None:
-        if not config.TPU.USE_PALLAS_ATTENTION:
-            attn_impl = "xla"
-        else:
-            attn_impl = config.TPU.get("ATTN_IMPL", "fused")
+        dtype = jnp.dtype(config.DEVICE.COMPUTE_DTYPE)
     if use_remat is None:
         use_remat = bool(config.TRAIN.USE_CHECKPOINT)
     backbone = CSWinUNet(
@@ -64,6 +70,5 @@ def build_model(
         drop_path_rate=config.MODEL.DROP_PATH_RATE,
         use_remat=use_remat,
         dtype=dtype,
-        attn_impl=attn_impl,
     )
     return CSwinUnet(backbone=backbone)

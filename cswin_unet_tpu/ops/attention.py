@@ -14,10 +14,8 @@ Behavioral spec comes from the reference ``LePEAttention``
     depthwise conv and is correctness-critical), added to the attention
     output.
 
-This module is the XLA-composed implementation; the fused Pallas kernel in
-``cswin_unet_tpu.ops.pallas`` computes the same function and is validated
-against this one. Scores accumulate in float32 on the MXU regardless of the
-activation dtype.
+This module is the model's only implementation, an XLA composition. Scores
+accumulate in float32 regardless of the activation dtype.
 """
 
 from __future__ import annotations
@@ -78,7 +76,7 @@ def cswin_attention_xla(
     vw = _heads(v_img.reshape(-1, L, C), num_heads)
     lepe = _heads(lepe.reshape(-1, L, C), num_heads)
 
-    # Scores in f32 for numerical stability; MXU accumulates f32 anyway.
+    # Scores in f32 for numerical stability.
     attn = jnp.einsum(
         "nhld,nhmd->nhlm", qw * scale, kw, preferred_element_type=jnp.float32
     )
@@ -89,30 +87,3 @@ def cswin_attention_xla(
     out = out.transpose(0, 2, 1, 3).reshape(-1, L, C)
     return window_merge(out, h_sp, w_sp, H, W)
 
-
-def cswin_attention(
-    q: jnp.ndarray,
-    k: jnp.ndarray,
-    v: jnp.ndarray,
-    lepe_kernel: jnp.ndarray,
-    lepe_bias: jnp.ndarray | None,
-    *,
-    h_sp: int,
-    w_sp: int,
-    num_heads: int,
-    scale: float,
-    impl: str = "xla",
-) -> jnp.ndarray:
-    """Dispatch between the XLA composition and the fused Pallas kernel."""
-    if impl == "pallas":
-        from .pallas.cswin_attention import cswin_attention_pallas
-
-        if lepe_bias is None:
-            lepe_bias = jnp.zeros((q.shape[-1],), q.dtype)
-        return cswin_attention_pallas(
-            q, k, v, lepe_kernel, lepe_bias, h_sp, w_sp, num_heads, scale
-        )
-    return cswin_attention_xla(
-        q, k, v, lepe_kernel, lepe_bias,
-        h_sp=h_sp, w_sp=w_sp, num_heads=num_heads, scale=scale,
-    )

@@ -19,7 +19,7 @@ expressed as reshapes + one einsum:
     array (k=3), which XLA fuses; the tap order is (di, dj) row-major,
     matching torch unfold's (dim2 then dim3) order.
 
-The final ``jnp.einsum`` contracts the k² taps on the MXU.
+The final ``jnp.einsum`` contracts the k² taps.
 """
 
 from __future__ import annotations
@@ -62,6 +62,9 @@ def carafe(
 ) -> jnp.ndarray:
     """CARAFE upsample: (B, H, W, C) -> (B, up·H, up·W, C_out).
 
+    ``impl="fast"`` is the model's path; ``"reference"`` keeps the
+    reference's operation order and serves as the test oracle.
+
     down_kernel:    (1, 1, C, C//4)
     encoder_kernel: (k, k, C//4, up²·k²)  — output channel layout (k², up²), k²-major
     out_kernel:     (1, 1, C, C_out)
@@ -93,9 +96,7 @@ def carafe(
         # C_out < C it also shrinks the patch tensor and the tap einsum.
         # The BIAS is added after reassembly — hoisting it through the
         # zero-padded border taps would scale it by the (<1) in-bounds tap
-        # mass at image borders. The einsum stays on the MXU (an explicit
-        # 9-step shift-FMA variant benched 25% slower end-to-end: XLA fuses
-        # the einsum better than sequential accumulations).
+        # mass at image borders.
         y = lax.conv_general_dilated(
             x, out_kernel.astype(x.dtype), (1, 1), ((0, 0), (0, 0)),
             dimension_numbers=("NHWC", "HWIO", "NHWC"),
@@ -109,34 +110,6 @@ def carafe(
         out = out.reshape(B, H, W, C_out, up_factor, up_factor)
         out = out.transpose(0, 1, 4, 2, 5, 3)
         return out.reshape(B, H * up_factor, W * up_factor, C_out)
-
-    if impl == "hires":
-        # High-res tap-sum: out[q] = Σ_tap kern_hi[q,tap]·y[low(q)+tap].
-        # The accumulator IS the final output layout (no pixel-shuffle
-        # transpose, no (C, up²) intermediate); each term is a lane-broadcast
-        # FMA of a nearest-upsampled shifted y against one kern_hi lane.
-        y = lax.conv_general_dilated(
-            x, out_kernel.astype(x.dtype), (1, 1), ((0, 0), (0, 0)),
-            dimension_numbers=("NHWC", "HWIO", "NHWC"),
-        )
-        C_out = y.shape[-1]
-        u = up_factor
-        # kern_hi[b, u·r+i, u·w+j, tap] = kern[b, r, w, tap, i·u+j]
-        kern_hi = kern.reshape(B, H, W, k2, u, u)
-        kern_hi = kern_hi.transpose(0, 1, 4, 2, 5, 3)
-        kern_hi = kern_hi.reshape(B, H * u, W * u, k2)
-        p = kernel_size // 2
-        yp = jnp.pad(y, ((0, 0), (p, p), (p, p), (0, 0)))
-        out = jnp.zeros((B, H * u, W * u, C_out), jnp.float32)
-        for di in range(kernel_size):
-            for dj in range(kernel_size):
-                tap = di * kernel_size + dj
-                sh = yp[:, di : di + H, dj : dj + W, :]
-                sh_hi = jnp.broadcast_to(
-                    sh[:, :, None, :, None, :], (B, H, u, W, u, C_out)
-                ).reshape(B, H * u, W * u, C_out)
-                out = out + sh_hi.astype(jnp.float32) * kern_hi[..., tap : tap + 1].astype(jnp.float32)
-        return (out + out_bias.astype(jnp.float32)).astype(x.dtype)
 
     # Reference-shaped composition (test oracle path).
     patches = extract_patches_3x3(x, kernel_size)  # (B, H, W, C, k²)
@@ -173,12 +146,12 @@ def carafe_with_classifier(
 
         logits = reassemble(x · (W_out · W_cls)) + b_out · W_cls
 
-    with reassembly on num_classes channels instead of C — at C=64, NC=9
-    that is 7x less tap-einsum work and a 7x smaller high-res write, and the
-    224² classifier conv disappears entirely. Exact because the softmaxed
-    taps sum to 1 (the constant b_out·W_cls passes through reassembly
-    unchanged) and reassembly weights are per-pixel scalars shared by all
-    channels.
+    and the class projection can run before the pixel shuffle, so the
+    shuffle transpose and the high-res write happen on num_classes channels
+    instead of C, and the 224² classifier conv disappears entirely. Exact
+    because the softmaxed taps sum to 1 (the constant b_out·W_cls passes
+    through reassembly unchanged) and reassembly weights are per-pixel
+    scalars shared by all channels.
     """
     B, H, W, C = x.shape
     k2 = kernel_size * kernel_size
@@ -196,11 +169,9 @@ def carafe_with_classifier(
     kern = enc.reshape(B, H, W, k2, up2)
     kern = jax.nn.softmax(kern.astype(jnp.float32), axis=3).astype(x.dtype)
 
-    # Reassemble on C channels (lane-efficient), project to NC with one MXU
-    # contraction BEFORE pixel-shuffle (classifier commutes with the shuffle),
-    # so the shuffle transpose and the high-res write happen on NC channels.
-    # Doing the class projection first instead (NC=9 lanes) benched slower —
-    # every reassembly op ran at ~7% lane utilization.
+    # Reassemble on C channels, project to NC with one contraction BEFORE
+    # pixel-shuffle (the classifier commutes with the shuffle), so the
+    # shuffle transpose and the high-res write happen on NC channels.
     w_cls = cls_kernel[0, 0].astype(jnp.float32)        # (C, NC)
     bias_comb = out_bias.astype(jnp.float32) @ w_cls    # (NC,)
     nc = w_cls.shape[-1]
@@ -216,162 +187,3 @@ def carafe_with_classifier(
     logits = logits.transpose(0, 1, 4, 2, 5, 3)
     return logits.reshape(B, H * up_factor, W * up_factor, nc)
 
-
-def fold_patches_3x3(dp: jnp.ndarray, kernel_size: int = 3) -> jnp.ndarray:
-    """Adjoint of ``extract_patches_3x3``: (B, H, W, C, k²) tap cotangents
-    -> (B, H, W, C) via 9 statically-indexed overlapping adds (f32 acc)."""
-    k = kernel_size
-    p = k // 2
-    B, H, W, C, _ = dp.shape
-    acc = jnp.zeros((B, H + 2 * p, W + 2 * p, C), jnp.float32)
-    t = 0
-    for di in range(k):
-        for dj in range(k):
-            acc = acc.at[:, di : di + H, dj : dj + W, :].add(
-                dp[..., t].astype(jnp.float32))
-            t += 1
-    return acc[:, p : p + H, p : p + W, :]
-
-
-def carafe_tail_bwd_manual(x, dk, db, ek, eb, ok, ob, ck, g, *,
-                           kernel_size: int = 3, up_factor: int = 4):
-    """Hand-associated vjp of ``carafe_with_classifier`` (same gradients as
-    the autodiff vjp up to fp reordering; contraction orders chosen for
-    TPU).
-
-    The autodiff vjp of the C-channel composition materializes the
-    (B, H, W, C, up²) f32 reassembly output AND its cotangent (~308 MB
-    each at the bs-24 224² train recipe) plus C-wide 5-D transposed
-    einsums — profile_parts_bwd.py measured the tail at 7.3 ms of the
-    43.6 ms step, with the forward under 1 ms. The NC-channel replay
-    (carafe_with_classifier_nc) shrinks the tensors 7x but runs every
-    reassembly op at 9/128 lane fill and benched SLOWER in-situ (bench
-    train 550.9 -> 533.8 samples/s). Here every cotangent contraction is
-    reassociated so the widest intermediates are the (NC, k²)-per-pixel
-    tensors A and patches_n (~24 MB each):
-
-      A[n,t]        = Σ_s g[n,s]·kern[t,s]          (tap-space cotangent)
-      dpatches[c,t] = Σ_n w_cls[c,n]·A[n,t]         (C-wide, but k²=9 deep)
-      patches_n[n,t]= Σ_c patches[c,t]·w_cls[c,n]
-      dkern[t,s]    = Σ_n patches_n[n,t]·g[n,s]
-      dW_cls[c,n]   = Σ_pix,t patches[c,t]·A[n,t] + b_out ⊗ Σ g
-      dy            = fold(dpatches);  dW_out = xᵀ·dy;  dx = dy·W_outᵀ + enc path
-
-    The enc/softmax subpath (small tensors) keeps the autodiff vjp."""
-    B, H, W, C = x.shape
-    k = kernel_size
-    k2 = k * k
-    up = up_factor
-    up2 = up * up
-    dt = x.dtype
-    f32 = jnp.float32
-
-    def conv(inp, kern, bias, pad):
-        y = lax.conv_general_dilated(
-            inp, kern.astype(inp.dtype), (1, 1), ((pad, pad), (pad, pad)),
-            dimension_numbers=("NHWC", "HWIO", "NHWC"),
-        )
-        return y if bias is None else y + bias.astype(y.dtype)
-
-    def enc_path(x_, dk_, db_, ek_, eb_):
-        enc = conv(conv(x_, dk_, db_, 0), ek_, eb_, k // 2)
-        kern_ = enc.reshape(B, H, W, k2, up2)
-        return jax.nn.softmax(kern_.astype(f32), axis=3).astype(dt)
-
-    kern, enc_vjp = jax.vjp(enc_path, x, dk, db, ek, eb)
-
-    y = conv(x, ok, None, 0)
-    patches = extract_patches_3x3(y, k)                 # (B, H, W, C, k²)
-
-    # Inverse pixel shuffle of the output cotangent -> (B, H, W, NC, up²).
-    nc = g.shape[-1]
-    gn = (g.reshape(B, H, up, W, up, nc)
-           .transpose(0, 1, 3, 5, 2, 4).reshape(B, H, W, nc, up2))
-
-    w_cls = ck[0, 0]                                    # (C, NC)
-
-    A = jnp.einsum("bhwns,bhwts->bhwnt", gn, kern,
-                   preferred_element_type=f32).astype(dt)
-    dpatches = jnp.einsum("cn,bhwnt->bhwct", w_cls.astype(dt), A,
-                          preferred_element_type=f32).astype(dt)
-    dy = fold_patches_3x3(dpatches, k).astype(dt)       # (B, H, W, C)
-
-    patches_n = jnp.einsum("bhwct,cn->bhwnt", patches, w_cls.astype(dt),
-                           preferred_element_type=f32).astype(dt)
-    dkern = jnp.einsum("bhwnt,bhwns->bhwts", patches_n, gn,
-                       preferred_element_type=f32).astype(dt)
-    dx_enc, ddk, ddb, dek, deb = enc_vjp(dkern)
-
-    # Classifier weight: reassembly term + the hoisted-bias term
-    # (bias_comb = b_out @ w_cls rides through reassembly unchanged).
-    dw_cls = jnp.einsum("bhwct,bhwnt->cn", patches, A,
-                        preferred_element_type=f32)
-    dg_sum = jnp.sum(gn.astype(f32), axis=(0, 1, 2, 4))     # (NC,)
-    dw_cls = dw_cls + ob.astype(f32)[:, None] * dg_sum[None, :]
-    dob = (w_cls.astype(f32) @ dg_sum).astype(ob.dtype)
-
-    dok = jnp.einsum("bhwi,bhwo->io", x, dy,
-                     preferred_element_type=f32)[None, None]
-    dx = (jnp.einsum("bhwo,io->bhwi", dy, ok[0, 0].astype(dt),
-                     preferred_element_type=f32).astype(dt)
-          + dx_enc)
-
-    return (dx, ddk, ddb, dek, deb, dok.astype(ok.dtype), dob,
-            dw_cls[None, None].astype(ck.dtype))
-
-
-def carafe_with_classifier_nc(
-    x: jnp.ndarray,
-    down_kernel: jnp.ndarray,
-    down_bias: jnp.ndarray,
-    encoder_kernel: jnp.ndarray,
-    encoder_bias: jnp.ndarray,
-    out_kernel: jnp.ndarray,
-    out_bias: jnp.ndarray,
-    cls_kernel: jnp.ndarray,
-    *,
-    kernel_size: int = 3,
-    up_factor: int = 4,
-) -> jnp.ndarray:
-    """``carafe_with_classifier`` with the class projection hoisted ALL the
-    way into the 1x1 conv: reassembly runs on num_classes channels.
-
-    Same function (both 1x1 convs commute below the per-channel
-    reassembly; fp reordering only). As a FORWARD this benched slower —
-    every reassembly op at NC = 9 of 128 lanes — but as the TRAIN tail's
-    vjp REPLAY (``pallas/carafe_tail._tail_bwd``) it is the right shape:
-    the C-channel composition materializes a (B, H, W, C, up²) f32
-    reassembly intermediate and its cotangent (~308 MB each at the bs-24
-    224² recipe) plus a (B, H, W, C, k²) patch cotangent, all of which
-    shrink by C/NC ≈ 7x here. profile_parts_bwd.py measured the tail's
-    fwd+bwd at 7.3 ms of the 43.6 ms bs-24 step — by far the largest
-    single part — with the forward alone well under 1 ms."""
-    B, H, W, C = x.shape
-    k2 = kernel_size * kernel_size
-    up2 = up_factor * up_factor
-
-    def conv(inp, kern, bias, pad):
-        y = lax.conv_general_dilated(
-            inp, kern.astype(inp.dtype), (1, 1), ((pad, pad), (pad, pad)),
-            dimension_numbers=("NHWC", "HWIO", "NHWC"),
-        )
-        return y if bias is None else y + bias.astype(y.dtype)
-
-    enc = conv(conv(x, down_kernel, down_bias, 0), encoder_kernel,
-               encoder_bias, kernel_size // 2)
-    kern = enc.reshape(B, H, W, k2, up2)
-    kern = jax.nn.softmax(kern.astype(jnp.float32), axis=3).astype(x.dtype)
-
-    w_cls = cls_kernel[0, 0].astype(jnp.float32)                  # (C, NC)
-    w_comb = (out_kernel[0, 0].astype(jnp.float32) @ w_cls)       # (C, NC)
-    bias_comb = out_bias.astype(jnp.float32) @ w_cls              # (NC,)
-    nc = w_cls.shape[-1]
-
-    yn = conv(x, w_comb[None, None], None, 0)           # (B, H, W, NC)
-    patches = extract_patches_3x3(yn, kernel_size)      # (B, H, W, NC, k²)
-    outn = jnp.einsum("bhwck,bhwks->bhwcs", patches, kern,
-                      preferred_element_type=jnp.float32)
-    logits = (outn + bias_comb[:, None]).astype(x.dtype)
-    logits = logits.reshape(B, H, W, nc, up_factor, up_factor)
-    logits = logits.transpose(0, 1, 4, 2, 5, 3)
-    return logits.reshape(B, H * up_factor, W * up_factor, nc)

@@ -1,8 +1,8 @@
 """Cross-shaped window partitioning.
 
-TPU-native equivalents of the reference's ``img2windows`` / ``windows2img``
-(reference ``networks/cswin_unet.py:184-202``), re-derived for NHWC layout
-(TPU convolutions and Pallas tiles want channels-last). Pure reshapes +
+Equivalents of the reference's ``img2windows`` / ``windows2img``
+(reference ``networks/cswin_unet.py:184-202``), re-derived for the NHWC
+layout the whole model uses. Pure reshapes +
 transposes — XLA fuses these into the surrounding ops; no data-dependent
 shapes anywhere.
 

@@ -1,14 +1,15 @@
 """Device mesh + shardings — the communication backend of this framework.
 
 The reference's only parallelism is single-process ``nn.DataParallel``
-(``trainer.py:37-38``); its TPU-native replacement is a 1-D ``data`` mesh
-over all chips with:
+(``trainer.py:37-38``); its replacement here is a 1-D ``data`` mesh over
+all devices with:
 
   * the batch sharded along ``data`` (inputs arrive pre-sharded via
     ``jax.device_put`` with a NamedSharding — no scatter step);
   * parameters and optimizer state replicated;
-  * gradient all-reduce inserted by XLA (riding ICI) when the jitted train
-    step consumes sharded batches and produces replicated grads.
+  * gradient all-reduce inserted by XLA (over NVLink on a multi-GPU host)
+    when the jitted train step consumes sharded batches and produces
+    replicated grads.
 
 The model is 24M params, so pure DP is the right point in the
 TP/PP/DP design space (SURVEY.md §2.7); wider meshes (e.g. ``(data, model)``)

@@ -2,7 +2,7 @@
 
 The reference repo has no serving path — its closest analogue is re-running
 ``test.py`` (reference test.py:103-165) over a dataset directory. This module
-is the TPU-native deployment story:
+is the deployment story:
 
   * the batched slice forward is compiled ONCE at a fixed chunk shape and
     warmed before the first request (cold-compile never lands on a request);

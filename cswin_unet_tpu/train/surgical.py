@@ -133,7 +133,7 @@ def parameter_group_of(name: str) -> str:
     stem / encoderN / mergeN / bottleneck / decoderN / upsampleN / concatN /
     norm_up / output)."""
     base = name.split("/")
-    # strip flax 'params'/'backbone' envelope components
+    # strip the 'params'/'backbone' envelope components
     parts = [p for p in base if p not in ("params", "backbone")]
     head = parts[0] if parts else name
     for prefix, group in _GROUP_PATTERNS:

@@ -6,12 +6,12 @@ SGD(momentum 0.9, weight_decay 1e-4), per-iteration poly decay
 every iteration and image triptychs every 20, checkpoints every 3 epochs
 after the halfway point plus the final epoch, identical log-line format.
 
-TPU-native differences:
+Differences from the reference:
   * one jit-compiled train step (forward+backward+update fused into a single
     XLA program, donated buffers — no Python in the hot path);
   * data parallelism via a device mesh: batches arrive sharded on the
     ``data`` axis, parameters are replicated, XLA all-reduces gradients
-    over ICI (replaces ``nn.DataParallel``, trainer.py:37-38);
+    across the devices (replaces ``nn.DataParallel``, trainer.py:37-38);
   * host loading is a threaded prefetcher with device double-buffering, so
     H2D copies overlap compute.
 """
@@ -221,13 +221,10 @@ def trainer_synapse(args, model, params, snapshot_path: str) -> str:
                 save_mode_path = os.path.join(snapshot_path, f"epoch_{epoch_num}.npz")
                 save_checkpoint(save_mode_path, params)
                 logging.info(f"save model to {save_mode_path}")
-                try:
-                    save_train_state(
-                        os.path.join(snapshot_path, "train_state"), params, opt_state,
-                        iter_num,
-                    )
-                except Exception as e:  # orbax is optional at runtime
-                    logging.info(f"train_state save skipped: {e}")
+                save_train_state(
+                    os.path.join(snapshot_path, "train_state"), params, opt_state,
+                    iter_num,
+                )
             multihost_barrier("post-checkpoint")
         if is_last:
             break

@@ -79,37 +79,57 @@ def load_checkpoint(path: str) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
-# full train-state checkpointing (params + optimizer state + step) via orbax
+# full train-state checkpointing (params + optimizer state + step)
 # ---------------------------------------------------------------------------
 # The reference cannot resume optimizer state (TRAIN.AUTO_RESUME/MODEL.RESUME
-# are dead config, SURVEY.md §5); here resume is first-class.
+# are dead config, SURVEY.md §5); here resume is first-class. A train-state
+# directory holds one ``state.npz`` with ``params/...``, ``opt_state/...``
+# (optax states keyed by their tree paths) and ``step``; restore reads it back
+# into the caller's templates.
+
+def _state_file(path: str) -> str:
+    return os.path.join(os.path.abspath(path), "state.npz")
+
+
+def _keyed(tree) -> dict[str, np.ndarray]:
+    leaves = jax.tree_util.tree_flatten_with_path(jax.device_get(tree))[0]
+    return {jax.tree_util.keystr(k, simple=True, separator=SEP): np.asarray(v)
+            for k, v in leaves}
+
 
 def save_train_state(path: str, params, opt_state, step: int) -> None:
-    import orbax.checkpoint as ocp
-
-    path = os.path.abspath(path)
-    state = {
-        "params": jax.device_get(params),
-        "opt_state": jax.device_get(opt_state),
-        "step": step,
-    }
-    ckptr = ocp.PyTreeCheckpointer()
-    ckptr.save(path, state, force=True)
+    """Write params, optimizer state and step to ``<path>/state.npz``."""
+    flat = {f"params{SEP}{k}": v for k, v in flatten(jax.device_get(params)).items()}
+    flat.update({f"opt_state{SEP}{k}": v for k, v in _keyed(opt_state).items()})
+    flat["step"] = np.asarray(step, np.int64)
+    file = _state_file(path)
+    os.makedirs(os.path.dirname(file), exist_ok=True)
+    np.savez(file, **{k: np.asarray(v) for k, v in flat.items()})
 
 
 def restore_train_state(path: str, params_template, opt_state_template):
-    """Restore (params, opt_state, step) with the given pytree structures."""
-    import orbax.checkpoint as ocp
+    """Restore (params, opt_state, step) into the given pytree structures.
+    Every template leaf must be present in the file with the same shape."""
+    with np.load(_state_file(path)) as data:
+        stored = {k: data[k] for k in data.files}
 
-    path = os.path.abspath(path)
-    template = {
-        "params": jax.device_get(params_template),
-        "opt_state": jax.device_get(opt_state_template),
-        "step": 0,
-    }
-    ckptr = ocp.PyTreeCheckpointer()
-    restored = ckptr.restore(path, item=template)
-    return restored["params"], restored["opt_state"], int(restored["step"])
+    def take(prefix, key, like):
+        name = f"{prefix}{SEP}{key}"
+        if name not in stored:
+            raise KeyError(f"train state at {path} has no entry {name!r}")
+        value = stored[name]
+        if value.shape != np.shape(like):
+            raise ValueError(f"{name}: stored shape {value.shape} != {np.shape(like)}")
+        return value.astype(np.asarray(like).dtype)
+
+    params = unflatten({k: take("params", k, v)
+                        for k, v in flatten(jax.device_get(params_template)).items()})
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(
+        jax.device_get(opt_state_template))
+    opt_state = jax.tree_util.tree_unflatten(treedef, [
+        take("opt_state", jax.tree_util.keystr(k, simple=True, separator=SEP), v)
+        for k, v in leaves])
+    return params, opt_state, int(stored["step"])
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +299,7 @@ def merge_matching(template_flat: dict, incoming: dict, log: Callable = print) -
 
 
 def load_from_pretrained(params, ckpt_path: str, log: Callable = print):
-    """Full ``load_from`` semantics (vision_transformer.py:45-72) onto a flax
+    """Full ``load_from`` semantics (vision_transformer.py:45-72) onto a
     params tree ``{'params': {'backbone': ...}}`` or a bare backbone tree."""
     if ckpt_path.endswith(".npz") or os.path.exists(ckpt_path + ".npz"):
         loaded, _ = load_checkpoint(ckpt_path)

@@ -58,6 +58,10 @@ if __name__ == "__main__":
     import jax
     import jax.numpy as jnp
 
+    from cswin_unet_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     from cswin_unet_tpu.models import build_model
     from cswin_unet_tpu.train.finetune import surgical_trainer
     from cswin_unet_tpu.utils.checkpoint import load_from_pretrained

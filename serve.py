@@ -3,7 +3,7 @@
 
 The reference repo has no serving entry (its closest path is re-running
 ``test.py`` over a dataset, reference test.py:103-165). This is the
-TPU-native deployment surface:
+deployment surface:
 
   one-shot:  python serve.py --cfg C --checkpoint ck.npz vol1.npy.h5 vol2.npz
   watching:  python serve.py --cfg C --checkpoint ck.npz \
@@ -52,6 +52,10 @@ config = get_config(args)
 def main():
     import jax
     import jax.numpy as jnp
+
+    from cswin_unet_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from cswin_unet_tpu.models import build_model
     from cswin_unet_tpu.serve import VolumeServer, watch_loop

@@ -3,7 +3,7 @@ pixel_shuffle + unfold composition (networks/cswin_unet.py:232-269).
 
 The oracle below re-creates that composition with public torch ops
 (F.pixel_shuffle / Tensor.unfold) on NCHW tensors, which is the canonical
-definition of the op — validating that the TPU formulation is the same
+definition of the op — validating that the XLA formulation is the same
 function of the same weights.
 """
 

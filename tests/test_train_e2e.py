@@ -97,7 +97,7 @@ def test_inference_padding_consistency(synth):
 
 
 def test_device_metrics_match_host(synth):
-    """test_single_volume(device_metrics=True) — the Pallas-EDT on-device
+    """test_single_volume(device_metrics=True) — the plain-jnp EDT on-device
     tail (predict on device -> nearest zoom -> volume_metrics_device) must
     reproduce the host path (scipy zoom + metrics.py EDT) bit-for-bit on
     the same predictions, including the depth-16 padding."""

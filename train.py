@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Base training CLI — argparse surface mirrors the reference ``train.py``
 (reference train.py:19-69) so command lines are interchangeable; the engine
-underneath is the TPU-native trainer (jit train step over a device mesh).
+underneath is the JAX trainer (jit train step over a device mesh).
 """
 
 import argparse
@@ -65,6 +65,10 @@ config = get_config(args)
 
 if __name__ == "__main__":
     import jax
+
+    from cswin_unet_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     random.seed(args.seed)
     np.random.seed(args.seed)

@@ -59,8 +59,8 @@ parser.add_argument('--tag', help='tag of experiment')
 parser.add_argument('--eval', action='store_true')
 parser.add_argument('--throughput', action='store_true')
 parser.add_argument('--device_metrics', action='store_true',
-                    help='compute dice/hd95 on device (Pallas EDT): '
-                         'predictions never leave HBM; host path '
+                    help='compute dice/hd95 on device (plain-jnp EDT): '
+                         'predictions never leave the device; host path '
                          'is used automatically when saving nii')
 
 args = parser.parse_args()
@@ -76,6 +76,10 @@ LIST_DIRS = {
 if __name__ == "__main__":
     import jax
     import jax.numpy as jnp
+
+    from cswin_unet_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from cswin_unet_tpu.data import SynapseDataset
     from cswin_unet_tpu.eval import VolumeInferencer, inference

@@ -77,6 +77,10 @@ if __name__ == "__main__":
     import jax
     import jax.numpy as jnp
 
+    from cswin_unet_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     from cswin_unet_tpu.models import build_model
     from cswin_unet_tpu.train.continual import get_stage_info, trainer_continual_surgical_tpgm
     from cswin_unet_tpu.utils.checkpoint import (
